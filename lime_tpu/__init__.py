@@ -1,8 +1,8 @@
-"""lime-tpu: TPU-native alignment-free metagenomic read classification.
+"""lime-tpu: accelerator-native alignment-free metagenomic read classification.
 
 A from-scratch re-design of the LiME method (eBWT/LCP/DA alpha-cluster
-classification) for TPU hardware: the reference's OpenMP byte-range streaming
-becomes segmented scans over device meshes (jax/XLA/pallas), its per-cluster
+classification) for accelerators through JAX: the reference's OpenMP byte-range
+streaming becomes segmented scans over device meshes (jax/XLA), its per-cluster
 fseek+sort scoring becomes one grouped pass at HBM bandwidth, and its
 per-read cascade becomes a dense masked-reduction jit.
 

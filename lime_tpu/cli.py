@@ -66,6 +66,9 @@ def _add_common(p: argparse.ArgumentParser, scoring: bool = False,
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(name)s %(message)s")
+    from .utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     ap = argparse.ArgumentParser(prog="lime-tpu", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -114,17 +117,17 @@ def main(argv=None) -> int:
                        help="one-dispatch serving path (no .clrs/.res "
                             "artifacts)")
         p.add_argument("--dense-threshold", type=int, default=None,
-                       help="genome-position density for TPU routing "
+                       help="genome-position density for banded routing "
                             "(default: auto)")
         p.add_argument("--mxu-dense-min", type=int, default=None,
-                       help="genome-position threshold for the MXU "
+                       help="genome-position threshold for the dense "
                             "histogram-matmul path (default: auto)")
         p.add_argument("--host-frac", type=float, default=None,
                        help="hybrid split: fraction of clusters scored "
                             "by the host SIMD engine (default: auto "
                             "from measured link bandwidth)")
         p.add_argument("--hbm-budget", type=int, default=None,
-                       help="HBM budget in bytes for the similarity "
+                       help="device-memory budget in bytes for the similarity "
                             "stack; smaller budgets force the "
                             "row-blocked beyond-HBM mode")
         if name == "run-sharded":

@@ -38,7 +38,7 @@ class LimeConfig:
       counters the similarity matrix accumulates mod 256, faithfully
       reproducing the reference's unsaturated uchar addition
       (src/ClusterBWT_DA.cpp:183).
-    - ``executor``: 'tpu' runs the jax/pallas path, 'host' the numpy
+    - ``executor``: 'tpu' runs the jax device path, 'host' the numpy
       reference path (used for validation and as the portable fallback).
     """
 
@@ -52,23 +52,23 @@ class LimeConfig:
     executor: str = "tpu"
     fused: bool = False  # one-dispatch serving path: no .clrs/.res artifacts
     threads: int = 1  # host-side worker threads for IO-bound stages
-    block_positions: int = 1 << 22  # streaming block size for the TPU pass
+    block_positions: int = 1 << 22  # streaming block size for the device pass
     error_tolerance: float = 0.02  # classify tie tolerance (Tools.h:37)
     # Density routing: clusters with at least this many genome positions run
-    # on the TPU banded kernel; sparser ones go to the native SIMD scorer
+    # on the device banded kernel; sparser ones go to the native SIMD scorer
     # (the one-hot kernel pays window * G_pad lanes per position regardless
     # of hits, so it only wins when many genome lanes actually hit).
-    # None = auto: 0 (everything TPU) while G_pad <= 128, else G_pad // 16.
+    # None = auto: 0 (everything banded) while G_pad <= 128, else G_pad // 16.
     dense_threshold: Optional[int] = None
-    # MXU histogram-matmul routing (large-G regime): pure-ACGT clusters with
-    # at least this many genome positions score on the MXU as batched
+    # Dense histogram-matmul routing (large-G regime): pure-ACGT clusters with
+    # at least this many genome positions score on the tensor cores as batched
     # indicator-feature matmuls (ops/dense_score.py) instead of the host
     # scorer.  None = auto: disabled while the banded kernel covers the
     # genome width (G_pad <= 256), else 16.  0 disables.
     mxu_dense_min: Optional[int] = None
     # Pair-stream scoring (ops/pair_score.py): the G-independent device
     # path — sparse clusters score on device at any genome count, dense
-    # ones on the MXU.  None = auto: on whenever the native planner is
+    # ones on the tensor cores.  None = auto: on whenever the native planner is
     # available and the flat scatter range fits int32; False forces the
     # legacy banded/density routing.
     pair_stream: Optional[bool] = None

@@ -1,6 +1,6 @@
 """Shared constants and dtypes for lime-tpu.
 
-TPU-native re-design of the reference's shared header (reference:
+Accelerator-native re-design of the reference's shared header (reference:
 src/Tools.h:31-110).  The compile-time typedef knobs of the reference
 (``dataTypeSim``/``dataTypeNSeq``/... , Tools.h:43-75) become runtime numpy
 dtypes here; the compile-time ``-D`` defines of the reference Makefile become
@@ -80,5 +80,12 @@ IUPAC_WATERFALL_PAIRS = tuple(
 
 # Default streaming block size (positions per device block) for the fused
 # scan+score pass.  The reference streams 1 MiB LCP buffers (Tools.h:31); on
-# TPU we stream much larger blocks straight from HBM.
+# the device we stream much larger blocks straight from device memory.
 DEFAULT_BLOCK_POSITIONS = 1 << 22
+
+# Scatter index past every device buffer.  Updates that must not land
+# (genome-side and pad rows, zero-valued entries) go here under
+# mode="drop" and are skipped, instead of piling onto one shared dummy
+# cell: on a GPU the updates to one cell serialize on its atomic, and
+# millions of them on one cell stall the whole scatter.
+SCATTER_DROP = 2**31 - 1

@@ -17,7 +17,7 @@ BCR + egsa + eGap (Preprocessing.sh:81-196) in one pass:
 
 This builder is the portable reference path; `lime_tpu.index.native`
 provides the C++ SA-IS path for large collections, and the same doubling
-algorithm runs on TPU in `lime_tpu.index.tpu_builder`.
+algorithm runs on the device in `lime_tpu.index.tpu_builder`.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""TPU-native eBWT/LCP/DA construction (prefix doubling on device).
+"""Device eBWT/LCP/DA construction (prefix doubling on the accelerator).
 
 The reference delegates index construction to three external CPU tools
 (BCR + egsa + eGap, Preprocessing.sh:81-196).  This builder runs the same

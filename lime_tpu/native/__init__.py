@@ -24,10 +24,11 @@ _LIB = os.path.join(_LIB_DIR, "liblime_native.so")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _failed = False
+_error: Optional[str] = None
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _failed
+    global _lib, _failed, _error
     with _lock:
         if _lib is not None or _failed:
             return _lib
@@ -149,13 +150,23 @@ def _load() -> Optional[ctypes.CDLL]:
                 ctypes.c_void_p,
             ]
             _lib = lib
-        except Exception:
+        except (OSError, subprocess.CalledProcessError,
+                AttributeError) as e:
             _failed = True
+            stderr = getattr(e, "stderr", None)
+            _error = f"{e}" + (f": {stderr.decode(errors='replace')}"
+                               if stderr else "")
         return _lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def load_error() -> Optional[str]:
+    """Why the native library did not build or load (None if it did)."""
+    _load()
+    return _error
 
 
 def build_index_native(seqs: Sequence[bytes]
@@ -201,12 +212,12 @@ def plan_native(lcp: np.ndarray, da: np.ndarray, ebwt: np.ndarray | None,
     padding = ``pad_doc``, written at allocation so no post-pass pad copy
     is needed) and bad_start/bad_len list the clusters routed to the host
     scorer: IUPAC-degenerate, longer than 255, or with fewer than
-    ``g_dense`` genome positions (density routing — the TPU one-hot kernel
+    ``g_dense`` genome positions (density routing — the device one-hot kernel
     pays window*G_pad lanes per position regardless of hits, so
     genome-sparse clusters run faster through
     :func:`score_clusters_native`).  When ``dense_min > 0``, pure-ACGT
     clusters with at least that many genome positions are listed in
-    dense_start/dense_len instead — the MXU histogram-matmul class (see
+    dense_start/dense_len instead — the dense histogram-matmul class (see
     :func:`plan_dense`).  Releases the GIL for the whole pass, so
     collections plan in parallel from Python threads.
     """
@@ -429,7 +440,7 @@ def plan_dense(starts: np.ndarray, lens: np.ndarray, da: np.ndarray,
                ebwt: np.ndarray | None, num_reads: int, num_docs: int,
                sym_lut: np.ndarray, K: int = 8, PR: int = 8,
                max_ent: int = 256):
-    """Emit the MXU histogram-matmul streams for genome-dense clusters.
+    """Emit the dense histogram-matmul streams for genome-dense clusters.
 
     Returns ``(rid, cmap, rb, rpf, gcl, ggf, ent_off, rt_off, gt_off,
     valid)``: per-entry read-lane tables + cluster map, read/genome feature

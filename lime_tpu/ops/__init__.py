@@ -1,7 +1,7 @@
 """Compute kernels: cluster detection, scoring, classification.
 
 Each op has a vectorized numpy host implementation (the exact/portable path)
-and a jax/pallas TPU implementation sharing the same semantics.  The numpy
+and a jax device implementation sharing the same semantics.  The numpy
 paths are bit-compatible with the reference binaries, including their
 counter-width quirks; see the individual modules for the parity notes.
 """

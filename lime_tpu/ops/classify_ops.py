@@ -23,7 +23,7 @@ assignments and reported similarities are bit-identical.
 
 The reference's per-read heap allocations, linear find()s and fseeks
 disappear: a block of reads becomes a dense (block, files, genomes) float32
-tensor and every stage is a masked reduction over it — the layout the TPU
+tensor and every stage is a masked reduction over it — the layout the device
 executor jits directly.
 """
 

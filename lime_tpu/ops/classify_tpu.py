@@ -1,8 +1,8 @@
-"""TPU executor for the classification cascade.
+"""Device executor for the classification cascade.
 
 jit-compiled port of :mod:`.classify_ops` — the same 4-stage masked-reduction
 cascade over a dense (block, files, genomes) tensor, with genomes padded to
-the TPU lane width.  float32 op-for-op with the host path (and therefore
+a 128-lane width.  float32 op-for-op with the host path (and therefore
 with the reference), since every comparison/sum keeps the same association
 order.
 """
@@ -176,7 +176,7 @@ def classify_reads_tpu(dense: np.ndarray, max_sim: np.ndarray,
                        tax: np.ndarray, rank_matrix: np.ndarray | None,
                        tax_rank: int, error: np.float32,
                        assign_higher: bool) -> ClassifyResult:
-    """Drop-in TPU equivalent of :func:`classify_ops.classify_reads`."""
+    """Drop-in device equivalent of :func:`classify_ops.classify_reads`."""
     B, F, T = dense.shape
     # No host-side lane padding — XLA pads internally, and shipping padded
     # tensors through the host->device link costs real bandwidth.

@@ -6,7 +6,7 @@ rows [i-1, j-1] where j is the first subsequent position with lcp[j] < alpha;
 the emitted record is (p_start = i-1, len = j-i+1).  A cluster is kept only
 if its rows contain at least one read (da < num_reads) and one genome.
 
-Equivalent formulation used here (and by the TPU kernel): let
+Equivalent formulation used here (and by the device kernel): let
 m[i] = lcp[i] >= alpha with m[0] forced False (lcp[0] is 0 by construction —
 the reference's leading-skip at ClusterLCP.cpp:196-202 makes any lcp[0] >=
 alpha prefix unreachable anyway).  Clusters are the maximal runs [s, e] of m

@@ -1,6 +1,6 @@
-"""TPU executor for cluster detection and scoring (jax/XLA).
+"""Device executor for cluster detection and scoring (jax/XLA).
 
-Design notes (TPU-first re-derivation, not a translation):
+Design notes (an accelerator-first re-derivation, not a translation):
 
 **Scoring** avoids the reference's per-cluster fseek + std::sort + histogram
 loops (src/ClusterBWT_DA.cpp:299-347) entirely, via an occurrence-matching
@@ -160,7 +160,7 @@ def score_clusters_tpu(p_start: np.ndarray, lens: np.ndarray, da: np.ndarray,
                        ebwt: np.ndarray | None, num_reads: int, num_refs: int,
                        config: LimeConfig, alpha: int | None = None,
                        lcp: np.ndarray | None = None) -> np.ndarray:
-    """Dense similarity matrix via the banded TPU kernel.
+    """Dense similarity matrix via the banded device kernel.
 
     Needs the lcp stream (+ alpha) to form the in-cluster mask; falls back
     to reconstructing the mask from the cluster list when lcp is absent.

@@ -31,7 +31,7 @@ Instead of the reference's per-cluster fseek + std::sort + nested loops
 (src/ClusterBWT_DA.cpp:299-347), everything here is one grouped computation:
 expand clusters to a position stream, lexsort by (cluster, document), build
 per-segment histograms with one scatter-add, then score all (read-segment,
-genome-segment) pairs in vectorized chunks.  The TPU path
+genome-segment) pairs in vectorized chunks.  The device path
 (:mod:`.fused_pass`) uses the same decomposition inside a streaming jit.
 """
 

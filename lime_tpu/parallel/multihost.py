@@ -137,7 +137,7 @@ def plan_host_range(fasta_path: str, num_reads: int, num_genomes: int,
     """Plan this host's range of a collection from memmapped index files.
 
     Only this host's byte range (plus the straddle extension) is ever
-    faulted in — the TPU analogue of the reference's per-thread fseek
+    faulted in — the multi-host analogue of the reference's per-thread fseek
     ranges (src/ClusterLCP.cpp:100-167).  Returns
     ``(packed, doc, window, bad_start, bad_len, (lo, hi))`` where
     bad_start holds GLOBAL positions and concatenating the per-host

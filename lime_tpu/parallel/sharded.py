@@ -44,6 +44,8 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
+from ..constants import SCATTER_DROP
+
 _PAD_W = 256  # static pad width; window is a traced value <= 255
 
 
@@ -65,7 +67,7 @@ def _pad2(x, fill=0):
 
 def banded_partial_sim(m, doc, sym, num_reads: int, num_refs: int,
                        window, emit_ok: Optional[jnp.ndarray] = None,
-                       impl: str = "auto", out_rows: Optional[int] = None,
+                       out_rows: Optional[int] = None,
                        acc_dtype=jnp.int32) -> jnp.ndarray:
     """Partial similarity matrix from one position stream.
 
@@ -87,9 +89,9 @@ def banded_partial_sim(m, doc, sym, num_reads: int, num_refs: int,
       which IS the reference's unsaturated uchar SimArray semantics
       (src/ClusterBWT_DA.cpp:183) — at 1/4 the HBM of int32.
 
-    Scatter-add is the expensive op on TPU (~50M rows/s), so the kernel
-    performs exactly one: each read position accumulates a per-genome count
-    vector V[i, :] across all banded offsets (the genome partner enters as
+    The kernel performs exactly one scatter-add: each read position
+    accumulates a per-genome count vector V[i, :] across all banded
+    offsets (the genome partner enters as
     a one-hot compare, an elementwise (L, G) op), and V is segment-summed
     by read id at the end.  The o-loops themselves are pure elementwise
     passes over the stream.
@@ -99,13 +101,6 @@ def banded_partial_sim(m, doc, sym, num_reads: int, num_refs: int,
     sym = sym.astype(jnp.int32)
     if emit_ok is None:
         emit_ok = jnp.ones(L, dtype=bool)
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if impl == "pallas":
-        return _pallas_partial_sim(m, doc, sym, num_reads, num_refs, window,
-                                   emit_ok, out_rows=out_rows,
-                                   acc_dtype=acc_dtype)
-
     g_pad = (max(128, -(-num_refs // 128) * 128) if out_rows is not None
              else num_refs)
     n_rows = out_rows if out_rows is not None else num_reads + 1
@@ -151,7 +146,7 @@ def banded_partial_sim(m, doc, sym, num_reads: int, num_refs: int,
                          (m, jnp.zeros((L, g_pad), jnp.int16)))
 
     emit = is_read & emit_ok
-    rows = jnp.where(emit, doc, num_reads)  # padded drop row
+    rows = jnp.where(emit, doc, SCATTER_DROP)
     Vm = jnp.where(emit[:, None], V, 0)
     sim = _scatter_sim(Vm, rows, num_reads, n_rows=n_rows,
                        acc_dtype=acc_dtype)
@@ -164,10 +159,10 @@ def _scatter_sim(v, rows, num_reads: int, n_rows: Optional[int] = None,
                  acc_dtype=jnp.int32) -> jnp.ndarray:
     """Segment-sum V rows by read id into a (n_rows, G) accumulator.
 
-    Split into independent partial scatters when the accumulator is small —
-    they pipeline measurably better on this hardware — but fall back to one
-    scatter when k copies of the matrix would cost real HBM (the paper-scale
-    regime, where the accumulator is the dominant allocation).
+    Split into independent partial scatters when the accumulator is small
+    (they can pipeline), but fall back to one scatter when k copies of the
+    matrix would cost real HBM (the paper-scale regime, where the
+    accumulator is the dominant allocation).
     """
     L, g_pad = v.shape
     if n_rows is None:
@@ -178,73 +173,12 @@ def _scatter_sim(v, rows, num_reads: int, n_rows: Optional[int] = None,
     parts = [
         jnp.zeros((n_rows, g_pad), acc_dtype)
         .at[rows[i * chunk:(i + 1) * chunk], :]
-        .add(v[i * chunk:(i + 1) * chunk].astype(acc_dtype))
+        .add(v[i * chunk:(i + 1) * chunk].astype(acc_dtype), mode="drop")
         for i in range(k)
     ]
     for p in parts:
         sim = sim + p
     return sim
-
-
-def _pallas_partial_sim(m, doc, sym, num_reads: int, num_refs: int,
-                        window, emit_ok, block: Optional[int] = None,
-                        interpret: bool = False,
-                        out_rows: Optional[int] = None,
-                        acc_dtype=jnp.int32) -> jnp.ndarray:
-    """Partial similarity via the Pallas banded kernel (ops/pallas_kernels).
-
-    Streams the position axis in HBM-bounded blocks: per block, the kernel
-    emits the per-position genome-match matrix V once (VMEM-resident across
-    all band offsets), then a scatter-add folds it into the similarity
-    matrix.  Blocks carry a 1024-position halo of real context on both
-    sides, so block boundaries never split a cluster's band (the reference's
-    chunk-straddle protocol, src/ClusterLCP.cpp:196-264).
-    """
-    from ..ops.pallas_kernels import banded_pair_matrix, pack_stream
-
-    L = m.shape[-1]
-    g_pad = max(128, -(-num_refs // 128) * 128)
-    n_rows = out_rows if out_rows is not None else num_reads + 1
-    packed = pack_stream(m, emit_ok, sym)
-    rows_all = jnp.where((doc < num_reads) & emit_ok, doc, num_reads)
-
-    def finish(sim):
-        if out_rows is not None:
-            return sim
-        return sim[:num_reads, :num_refs]
-
-    # V block cap ~0.5 GB: (B, G_pad) int8
-    B = block or min(L, max(1 << 20, (1 << 29) // g_pad))
-    if L <= B:
-        v = banded_pair_matrix(packed, doc, window, num_reads, num_refs,
-                               interpret=interpret)
-        return finish(_scatter_sim(v, rows_all, num_reads, n_rows=n_rows,
-                                   acc_dtype=acc_dtype))
-
-    halo = 1024
-    n_blocks = -(-L // B)
-    l_pad = n_blocks * B
-    pk_p = jnp.pad(packed, (halo, l_pad - L + halo))
-    dc_p = jnp.pad(doc, (halo, l_pad - L + halo),
-                   constant_values=jnp.int32(-0x7FFFFFFF))
-    # pad rows so the last block's tail scatters into the drop row
-    rows_p = jnp.pad(rows_all, (0, l_pad - L), constant_values=num_reads)
-
-    def body(b, sim):
-        pk_e = lax.dynamic_slice(pk_p, (b * B,), (B + 2 * halo,))
-        dc_e = lax.dynamic_slice(dc_p, (b * B,), (B + 2 * halo,))
-        v_e = banded_pair_matrix(pk_e, dc_e, window, num_reads, num_refs,
-                                 interpret=interpret)
-        v = v_e[halo:halo + B]
-        rows = lax.dynamic_slice(rows_p, (b * B,), (B,))
-        # int8 accumulator adds wrap mod 256 — exactly the reference's
-        # uchar SimArray += (src/ClusterBWT_DA.cpp:183)
-        return sim + _scatter_sim(v, rows, num_reads, n_rows=n_rows,
-                                  acc_dtype=acc_dtype)
-
-    sim = lax.fori_loop(0, n_blocks, body,
-                        jnp.zeros((n_rows, g_pad), acc_dtype))
-    return finish(sim)
 
 
 def banded_fused_step(lcp, da, sym, num_reads: int, num_refs: int,
@@ -382,7 +316,7 @@ def make_sharded_pipeline(mesh, num_files: int, num_reads: int,
         )(m_e, da_e, sym_e)  # (F, r_pad, G_pad) partial for this shard
 
         if dense_chunks:
-            # MXU histogram-matmul chunks for genome-dense clusters
+            # tensor-core histogram-matmul chunks for genome-dense clusters
             # (ops/dense_score.py), round-robined over the flattened
             # (sp, dp) shards; every pair is emitted by exactly one shard,
             # so the psum below merges them like the banded partials.
@@ -620,7 +554,7 @@ def run_sharded(collections, output_path: str, num_reads: int,
         d_ridx = np.full((n_ch, _DR), _DB * _DP * f_dim, np.int32)
         d_gidx = np.full((n_ch, _DG), _DC * g_pad * f_dim, np.int32)
         d_cmap = np.zeros((n_ch, _DB), np.int32)
-        d_rid = np.full((n_ch, _DB * _DP), num_reads, np.int32)
+        d_rid = np.full((n_ch, _DB * _DP), SCATTER_DROP, np.int32)
         d_file = np.full(n_ch, F, np.int32)
         for i, (fi, ridx, gidx, cmap_c, rid_c) in \
                 enumerate(dense_chunk_list):
@@ -906,7 +840,7 @@ def make_pair_sharded_pipeline(mesh, num_files: int, num_reads: int,
             gcol_v = gc[jnp.clip(cidx, 0, gc.shape[0] - 1)].astype(
                 jnp.int32)
             local = row - row_base
-            ok = (~gs) & (local >= 0) & (local < rows_local)
+            ok = (~gs) & (hits != 0) & (local >= 0) & (local < rows_local)
             flat = jnp.where(ok, local * g_pad + gcol_v, drop)
             f_safe = jnp.minimum(fidx, num_files)  # pad chunks -> drop
             partial = partial.reshape(num_files + 1, -1).at[
@@ -975,9 +909,9 @@ def run_sharded_pairs(collections, output_path: str, num_reads: int,
     The packed planner's chunks are copy-aligned, so they round-robin
     over the mesh with no halo exchange; genome-dense and rescue
     clusters fold in as exact-host COO corrections (the dense share of
-    positions is small — the MXU path stays a single-chip feature for
-    now).  Outputs are bit-identical to the banded engine and the host
-    pipeline.
+    positions is small — the dense matmul path stays a single-chip
+    feature for now).  Outputs are bit-identical to the banded engine and
+    the host pipeline.
     """
     from ..config import DEFAULT_CONFIG
     from ..constants import SYMBOL_RANK_LUT

@@ -62,7 +62,7 @@ def cluster_lcp(fasta_path: str, num_reads: int, num_genomes: int,
     with timer.phase("scan", nbytes=8 * len(lcp)):
         # The standalone boundary scan is pure streaming at memory bandwidth
         # with a one-bit carry; the host implementation is optimal for it.
-        # The TPU executor's value is in the fused scoring pass, where the
+        # The device executor's value is in the fused scoring pass, where the
         # same mask is consumed on device (ops/fused_pass.py).  The native
         # scan honors config.threads via the straddle protocol (the
         # reference's ClusterLCP `threads` argument, src/ClusterLCP.cpp:139).

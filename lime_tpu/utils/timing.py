@@ -1,6 +1,6 @@
 """Per-phase wall-clock timing.
 
-TPU-era replacement for the reference's per-thread omp_get_wtime prints
+Replacement for the reference's per-thread omp_get_wtime prints
 (src/ClusterLCP.cpp:273-278) and /usr/bin/time -v wrappers
 (LiME_paired.sh:44-79).  Also exposes jax device-memory stats in place of
 the reference's malloc_count heap interposition (external/malloc_count/).

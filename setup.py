@@ -7,7 +7,7 @@ from setuptools import find_packages, setup
 setup(
     name="lime-tpu",
     version="0.1.0",
-    description="TPU-native alignment-free metagenomic read classification",
+    description="Alignment-free metagenomic read classification in JAX",
     packages=find_packages(exclude=("tests",)),
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],

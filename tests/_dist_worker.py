@@ -9,6 +9,7 @@ Process 0 writes <root>/dist_<engine>.csv (engine: banded | pair).
 process covers every dp owner locally).
 """
 
+import os
 import sys
 
 
@@ -16,6 +17,9 @@ def main() -> None:
     pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     root = sys.argv[4]
 
+    # several worker processes share one host: none may claim an
+    # accelerator, whatever the parent's environment says
+    os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -12,7 +12,7 @@ Biology knobs:
 - ``conserved_frac``: a fraction of each genome is a mutated copy of its
   *group's* template (groups of ``group_size`` genomes), modeling conserved
   genus-level regions.  These create genome-dense alpha-clusters — the
-  regime the TPU banded kernel is routed (density routing).
+  regime the dense matmul path is routed (density routing).
 - reads are sampled from both strands with per-base mutations; a
   ``negative_fraction`` of shuffled reads must classify U (the reference
   benchmark's negative controls, Datasets/README.md:16).
@@ -156,21 +156,24 @@ def make_big_dataset(root: str, num_pairs: int, num_genomes: int,
     glens = np.full(num_genomes, genome_len, np.int64)
     gflat_ascii = _BASE[flat]
     lens = np.concatenate([np.full(num_pairs, read_len, np.int64), glens])
-    collections = []
-    n_positions = 0
-    for tag, reads in (("1F", reads1), ("1RC", _COMP[reads1[:, ::-1]]),
-                       ("2F", reads2), ("2RC", _COMP[reads2[:, ::-1]])):
+    def build(tag, reads):
         path = os.path.join(root, f"col_{tag}.fasta")
         with open(path, "w") as f:
             f.write(f">stub {tag}\nACGT\n")  # binaries read only the arrays
         concat = np.concatenate([_BASE[reads.reshape(-1)], gflat_ascii])
         ebwt, lcp, da = native.build_index_native_concat(concat, lens)
         write_index_arrays(path, ebwt, lcp, da)
-        n_positions = len(ebwt)
-        del ebwt, lcp, da
-        collections.append(path)
+        return path, len(ebwt)
 
-    return BigDataset(root=root, collections=collections,
+    # the native builder releases the GIL: the four indexes build at once
+    from concurrent.futures import ThreadPoolExecutor
+
+    strands = (("1F", reads1), ("1RC", _COMP[reads1[:, ::-1]]),
+               ("2F", reads2), ("2RC", _COMP[reads2[:, ::-1]]))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        built = list(pool.map(lambda s: build(*s), strands))
+
+    return BigDataset(root=root, collections=[p for p, _ in built],
                       lineage_path=lineage_path, num_reads=num_pairs,
                       num_genomes=num_genomes, read_len=read_len,
-                      positions_per_collection=n_positions)
+                      positions_per_collection=built[-1][1])

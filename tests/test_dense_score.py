@@ -1,4 +1,4 @@
-"""MXU histogram-matmul dense-scoring path vs the exact host scorer."""
+"""Tensor-core histogram-matmul dense-scoring path vs the exact host scorer."""
 
 import numpy as np
 import pytest
@@ -105,7 +105,7 @@ def test_dense_multi_entry_cluster():
 
 
 def test_fused_mxu_dense_routing_matches_host(dataset, tmp_path):
-    """End-to-end: forcing every eligible cluster through the MXU dense
+    """End-to-end: forcing every eligible cluster through the dense
     path leaves the CSV byte-identical to the host pipeline."""
     a = str(tmp_path / "staged.csv")
     run_paired(dataset.collections, a, dataset.num_reads,

@@ -43,7 +43,6 @@ def test_two_process_sharded_matches_host(tmp_path, engine, port):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env.pop("LIME_TEST_TPU", None)
     env["PYTHONPATH"] = ROOT
     procs = [
         subprocess.Popen(
@@ -89,7 +88,6 @@ def test_three_process_sharded_matches_host(tmp_path, engine, mesh, port):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-    env.pop("LIME_TEST_TPU", None)
     env["PYTHONPATH"] = ROOT
     procs = [
         subprocess.Popen(

@@ -98,7 +98,7 @@ def test_intact_lineage_identical_to_oracle(dataset, scored_collections,
 
 
 def test_sim_dump_matches_reference_small_build(tmp_path, monkeypatch,
-                                                capsys):
+                                                capsys, oracle):
     """LIME_DUMP_SIM=1 reproduces the reference's SMALL=1 full-SimArray
     stdout dump byte for byte (src/ClusterBWT_DA.cpp:672-681) — the
     runtime equivalent of that compile-time debug build."""
@@ -107,7 +107,6 @@ def test_sim_dump_matches_reference_small_build(tmp_path, monkeypatch,
     from lime_tpu import native
     from lime_tpu.config import LimeConfig
     from lime_tpu.pipeline import cluster_bwt, cluster_lcp
-    from tests.oracle import OracleBinaries
     from tests.synth import make_dataset
 
     if not native.available():
@@ -115,7 +114,6 @@ def test_sim_dump_matches_reference_small_build(tmp_path, monkeypatch,
     ds = make_dataset(str(tmp_path), num_pairs=40, read_len=60,
                       genome_lens=(2000, 1500), seed=13)
     col = ds.collections[0]
-    oracle = OracleBinaries.build()
     oracle.cluster_lcp(col, ds.num_reads, ds.num_genomes, 16)
     out = oracle._run(
         "ClusterBWT_DA_BIN1_EBWT1_SMALL1",

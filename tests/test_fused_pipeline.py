@@ -24,7 +24,7 @@ def test_fused_density_routing_matches_host(dataset, tmp_path):
     """Any density-routing split must leave the output byte-identical.
 
     dense_threshold=10**9 forces every cluster through the native host
-    scorer; an intermediate value splits clusters between the TPU banded
+    scorer; an intermediate value splits clusters between the device banded
     kernel and the host scorer mid-collection.
     """
     a = str(tmp_path / "staged.csv")

@@ -8,7 +8,7 @@ line).  `example/refs.fasta` is a stripped large blob
 embedding half of each accession's own reads — reads of the fourth
 accession (CP000360, absent from the lineage, i.e. the negative-control
 genome) classify U/A.  End-to-end CSV must be bit-identical across the
-oracle binaries, the host path, and the fused TPU path at the README's
+oracle binaries, the host path, and the fused device path at the README's
 parameters (alpha=16, beta=0.25, TaxRank=1).
 """
 

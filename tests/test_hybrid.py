@@ -132,7 +132,7 @@ def test_hybrid_blocked_mode(dataset, tmp_path, monkeypatch):
                                               ("1", False)])
 def test_all_host_dense_offload_byte_identical(tmp_path, monkeypatch,
                                                offload, use_ebwt):
-    """Pair-heavy clusters offloaded to the MXU dense path in all-host
+    """Pair-heavy clusters offloaded to the dense matmul path in all-host
     mode (round 5: 0.18% of clusters carry ~84% of pair work at paper
     scale) must not change a byte vs pure all-host or the host
     pipeline.  Deep-coverage duplicate reads force pair-heavy clusters

@@ -3,7 +3,7 @@
 The planner (lime_plan_pairs) + device kernel (ops/pair_score) must
 reproduce the reference's scoring semantics exactly: routing covers the
 full input domain (sparse clusters to the pair stream, genome-dense to
-MXU, degenerate/long to host rescue) and the accumulated u8 matrix wraps
+the dense matmul path, degenerate/long to host rescue) and the accumulated u8 matrix wraps
 mod 256 like the reference's SimArray (src/ClusterBWT_DA.cpp:183).
 """
 
@@ -108,7 +108,7 @@ def test_pair_path_matches_exact(use_ebwt):
 
 
 def test_pair_path_with_degenerates_and_dense():
-    """Degenerate clusters route to rescue; dense to the MXU list."""
+    """Degenerate clusters route to rescue; dense to the matmul list."""
     rng = np.random.default_rng(23)
     num_reads, num_genomes = 150, 40
     lcp, da, ebwt = _random_index(rng, 40000, num_reads, num_genomes, 16,

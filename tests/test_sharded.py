@@ -177,7 +177,7 @@ def test_banded_single_device_matches_host_scoring(clean_dataset):
 
 
 def test_sharded_mxu_dense_matches_host(dataset, tmp_path):
-    """MXU histogram-matmul chunks inside the SPMD step == host pipeline.
+    """Dense histogram-matmul chunks inside the SPMD step == host pipeline.
 
     mxu_dense_min=1 routes every eligible pure-ACGT cluster through the
     in-program dense scan (degenerate clusters still ride the COO rescue).

@@ -28,7 +28,7 @@ def test_split_fraction_decision_table():
     rate = 11e6  # ~measured single-core SIMD scorer rate on this host
     # PCIe-class link (16 GB/s): essentially everything rides the device
     assert fp._split_fraction(16.0, rate) < 0.01
-    # degraded relay (20 MB/s): essentially everything host-scores
+    # slow host link (20 MB/s): essentially everything host-scores
     assert fp._split_fraction(0.020, rate) > 0.6
     # the crossover bandwidth equalizes the pipelines at f = 0.5
     bw_eq = fp._STREAM_BYTES_PER_ROW * rate / 1e9
@@ -61,8 +61,7 @@ def test_host_rate_estimate_prior_and_measured():
 
 
 @pytest.mark.skipif(not native.available(), reason="needs native scorer")
-def test_host_split_for_uses_measurements(monkeypatch):
-    monkeypatch.setattr(fp, "_relay_attached", lambda: False)
+def test_host_split_for_uses_measurements():
     cfg = LimeConfig(executor="tpu", fused=True)
     # no bandwidth measurement yet: direct-attached starts pure-device
     assert fp._host_split_for(cfg, 10000, 100, False) == 0
@@ -77,10 +76,3 @@ def test_host_split_for_uses_measurements(monkeypatch):
     # explicit fraction still wins over measurements
     cfg2 = LimeConfig(executor="tpu", fused=True, host_frac=1.0)
     assert fp._host_split_for(cfg2, 10000, 100, False) == 256
-
-
-def test_host_split_relay_pins_all_host(monkeypatch):
-    monkeypatch.setattr(fp, "_relay_attached", lambda: True)
-    monkeypatch.setattr(fp.native, "available", lambda: True)
-    cfg = LimeConfig(executor="tpu", fused=True)
-    assert fp._host_split_for(cfg, 10000, 100, False) == 256

@@ -3,10 +3,11 @@
 The SRR1804065 real-sample database has 3,423 accessions
 (reference Datasets/README.md:67) — the widest genome set the reference
 publishes.  This exercises the paths that only exist past 1,024 genome
-lanes: g_pad 3456 psi tiles on the MXU dense path, the u16 per-copy
+lanes: g_pad 3456 psi tiles on the dense matmul path, the u16 per-copy
 genome column of the packed pair stream, and the 12-bit coo24 column of
-the hybrid uplink.  Output must be byte-identical to the compiled
-reference binaries.
+the hybrid uplink.  Output must be byte-identical to the host executor,
+and the host executor to the compiled reference binaries where they can
+be built.
 
 Genomes are short (the width is what matters, not the length); a slow
 marker keeps it out of the default quick loop only if runtime becomes a
@@ -22,7 +23,6 @@ from lime_tpu import native
 from lime_tpu.config import LimeConfig
 from lime_tpu.pipeline import run_paired
 
-from .oracle import OracleBinaries
 from .synth import make_dataset
 
 SRR_GENOMES = 3423
@@ -34,7 +34,7 @@ def srr_dataset(tmp_path_factory):
     rng = np.random.default_rng(99)
     # short genomes: width (3,423 documents) is the stressor; conserved
     # 60-mers shared across blocks of 64 genomes create genome-dense
-    # clusters that route to the MXU path at this width
+    # clusters that route to the dense matmul path at this width
     lens = [int(v) for v in rng.integers(180, 260, SRR_GENOMES)]
     ds = make_dataset(root, num_pairs=1500, read_len=60,
                       genome_lens=lens, seed=99, mutation_rate=0.01,
@@ -43,10 +43,10 @@ def srr_dataset(tmp_path_factory):
     return ds
 
 
-def test_srr_width_oracle_parity(srr_dataset, tmp_path):
+def test_srr_width_oracle_parity(srr_dataset, oracle, tmp_path):
+    """The host executor matches the compiled reference at width."""
     ds = srr_dataset
     assert ds.num_genomes == SRR_GENOMES
-    oracle = OracleBinaries.build()
     ref_csv = str(tmp_path / "ref.csv")
     for c in ds.collections:
         oracle.cluster_lcp(c, ds.num_reads, ds.num_genomes, 16, threads=1)
@@ -54,16 +54,28 @@ def test_srr_width_oracle_parity(srr_dataset, tmp_path):
     oracle.classify([c + ".res" for c in ds.collections], ds.num_reads,
                     ds.num_genomes, ref_csv, ds.lineage_path, 1,
                     threads=1)
-    want = open(ref_csv).read()
+    host_csv = str(tmp_path / "host.csv")
+    run_paired(ds.collections, host_csv, ds.num_reads, ds.num_genomes,
+               ds.lineage_path, ds.read_len, LimeConfig(executor="host"))
+    assert open(host_csv).read() == open(ref_csv).read()
 
-    # fused auto-routing (pair stream + MXU dense + rescue) at g_pad 3456
+
+def test_srr_width_fused_matches_host(srr_dataset, tmp_path):
+    """Fused auto-routing (pair stream + dense matmul + rescue) at
+    g_pad 3456, and the hybrid split's 12-bit coo24 columns above 1024
+    genomes, both byte-identical to the host executor."""
+    ds = srr_dataset
+    host_csv = str(tmp_path / "host.csv")
+    run_paired(ds.collections, host_csv, ds.num_reads, ds.num_genomes,
+               ds.lineage_path, ds.read_len, LimeConfig(executor="host"))
+    want = open(host_csv).read()
+
     out = str(tmp_path / "fused.csv")
     run_paired(ds.collections, out, ds.num_reads, ds.num_genomes,
                ds.lineage_path, ds.read_len,
                LimeConfig(executor="tpu", fused=True, host_frac=0.0))
-    assert open(out).read() == want, "fused pair+MXU diverged at width"
+    assert open(out).read() == want, "fused pair+dense diverged at width"
 
-    # hybrid split: 12-bit coo24 columns above 1024 genomes
     out2 = str(tmp_path / "hybrid.csv")
     run_paired(ds.collections, out2, ds.num_reads, ds.num_genomes,
                ds.lineage_path, ds.read_len,

@@ -1,7 +1,7 @@
-"""TPU-executor parity: jax path vs host path vs oracle artifacts.
+"""Device-executor parity: jax path vs host path vs oracle artifacts.
 
-Runs on CPU jax in CI; the kernels are platform-agnostic jax so the same
-code compiles for TPU.
+Runs on CPU jax here; the kernels are platform-agnostic jax, and
+``chip_smoke.py`` runs the same code on the GPU.
 """
 
 import numpy as np
@@ -17,7 +17,7 @@ from lime_tpu.ops.scoring import score_clusters
 from lime_tpu.pipeline import cluster_lcp, run_paired
 
 HOST = LimeConfig(executor="host")
-TPU = LimeConfig(executor="tpu")
+DEVICE = LimeConfig(executor="tpu")
 
 
 def test_find_clusters_tpu_matches_host(dataset):
@@ -38,7 +38,7 @@ def test_score_clusters_tpu_matches_host(dataset, use_ebwt):
     p, l = read_clusters(clusters_path_for(fasta, 16))
     da, ebwt = np.asarray(open_da(fasta)), np.asarray(open_ebwt(fasta))
     cfg_h = HOST.replace(use_ebwt=use_ebwt)
-    cfg_t = TPU.replace(use_ebwt=use_ebwt)
+    cfg_t = DEVICE.replace(use_ebwt=use_ebwt)
     sim_h = score_clusters(p, l, da, ebwt, dataset.num_reads,
                            dataset.num_genomes, cfg_h)
     sim_t = score_clusters_tpu(p, l, da, ebwt, dataset.num_reads,
@@ -73,6 +73,6 @@ def test_tpu_end_to_end_matches_host(dataset, tmp_path):
                      dataset.read_len, HOST)
     s_t = run_paired(dataset.collections, out_t, dataset.num_reads,
                      dataset.num_genomes, dataset.lineage_path,
-                     dataset.read_len, TPU)
+                     dataset.read_len, DEVICE)
     assert open(out_h).read() == open(out_t).read()
     assert s_h == s_t
